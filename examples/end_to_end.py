@@ -1,6 +1,6 @@
 """End-to-end walkthrough: every capability of the framework in one script.
 
-Runs hermetically (synthetic data, mock detector) on CPU or TPU:
+Runs hermetically (synthetic data, mock detector) on CPU or GPU:
   1. train a phase-1 lifter          (reference: phase1 train_1.py)
   2. train the projector             (reference: phase5 train_project.py)
   3. phase-5 consistency loop        (reference: phase5 train_5.py)
@@ -8,8 +8,8 @@ Runs hermetically (synthetic data, mock detector) on CPU or TPU:
   5. temporal sequence lifter        (reference: external MotionBERT)
   6. video -> keypoints -> 3D        (reference: phase2 run.py)
   7. serve the lifter                (new: production serving path)
-  8. multi-chip: DP serving + DP fused-kernel temporal training over
-     the device mesh via shard_map  (new: parallel/ + train.steps)
+  8. multi-device: DP serving + DP temporal training over the device
+     mesh via shard_map  (new: parallel/ + train.steps)
 
 Usage:  python examples/end_to_end.py [--cpu] [--workdir DIR]
 """
@@ -36,7 +36,7 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    work = pathlib.Path(args.workdir or tempfile.mkdtemp(prefix="tpu_pose_"))
+    work = pathlib.Path(args.workdir or tempfile.mkdtemp(prefix="pose3d_"))
     logs = str(work / "logs")
     print(f"== workdir {work}, backend {jax.default_backend()} ==")
 
@@ -125,11 +125,11 @@ def main():
     from pose3d_tpu.pipeline.detector import PoseNet2DDetector
     from pose3d_tpu.pipeline.keypoints import load_video_json
 
-    on_tpu = jax.default_backend() == "tpu"
+    on_gpu = jax.default_backend() == "gpu"
     det_state, det_px = train_detector(DetectorConfig(
         run_name="detector", log_dir=logs, architecture="resnet18",
-        n_steps=240 if on_tpu else 24, chunk_steps=8, batch_size=8,
-        n_train=512, n_eval=64, bf16=on_tpu))
+        n_steps=240 if on_gpu else 24, chunk_steps=8, batch_size=8,
+        n_train=512, n_eval=64, bf16=on_gpu))
     gt2d, gt3d = synthetic_h36m(20, seed=5)
     frames = np.asarray(render_pose_frames(gt2d, jax.random.key(5)))
     write_video(iter((frames * 255).astype(np.uint8)),
@@ -161,7 +161,7 @@ def main():
     out = svc.lift(rng.random((300, 17, 2)).astype(np.float32))
     print(f"served {out.shape}; all artifacts under {work}")
 
-    print("\n[8/8] multi-chip (mesh) paths")
+    print("\n[8/8] multi-device (mesh) paths")
     import jax
 
     from pose3d_tpu.parallel.mesh import make_mesh
@@ -173,23 +173,19 @@ def main():
                            mesh=mesh)
     out_dp = svc_dp.lift(rng.random((100, 17, 2)).astype(np.float32))
     print(f"DP serving over {n} device(s): {out_dp.shape}")
-    # fused-kernel DP training (GSPMD cannot partition a pallas_call:
-    # this is the shard_map route; kernels interpret on CPU)
-    from pose3d_tpu.ops.pallas_stblock_train import make_fused_train_apply
+    # shard_map DP training: each device runs the one-device step on its
+    # shard, grads pmean over the data axis
     from pose3d_tpu.models.temporal import TemporalLifter as TL
 
-    dp_model = TL(clip_len=12, n_blocks=1)
+    dp_model = TL(clip_len=12, hidden=64, n_blocks=1, heads=4)
     dstate = create_train_state(dp_model, jax.random.key(3),
                                 jnp.zeros((n, 12, 17, 2)), lr=1e-3)
-    dstate = dstate.replace(apply_fn=make_fused_train_apply(
-        n_blocks=1, clip_len=12,
-        interpret=jax.default_backend() != "tpu"))
     dp_step = make_dp_lifter_train_step(mesh, donate=False)
     dstate, dm = dp_step(
         dstate, jnp.asarray(rng.random((n, 12, 17, 2), np.float32)),
         jnp.asarray(rng.random((n, 12, 17, 3), np.float32) - 0.5),
         jax.random.key(4))
-    print(f"DP fused-kernel train step over {n} device(s): "
+    print(f"DP temporal train step over {n} device(s): "
           f"loss {float(dm['loss']):.4f}")
     print("\n== DONE ==")
 

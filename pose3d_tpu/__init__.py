@@ -1,19 +1,18 @@
-"""tpu-pose: TPU-native 3D human pose estimation framework.
+"""tpu-pose: 3D human pose estimation in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capability surface of the five-phase
+A ground-up JAX/XLA rebuild of the capability surface of the five-phase
 research stack RHnejad/3D_PoseEstimation (reference mounted at /root/reference):
 
 - ``core``     — skeleton constants, quaternion/camera math, pose transforms
                  (reference: phase3_direct/my_HybrIK/utils.py, phase2_opp_mb/run.py)
 - ``data``     — Human3.6M keypoint pipeline, normalization statistics,
-                 double-buffered host->HBM device feed
+                 double-buffered host->device feed
                  (reference: phase3_direct/my_HybrIK/H36_dataset.py)
 - ``models``   — lifters (Martinez residual MLP, joint-token transformer),
                  ResNet backbones, volumetric-heatmap heads, temporal transformer,
                  SMPL/HybrIK (reference: phase1_lifting/baselineModel.py,
                  phase3_direct/my_HybrIK/{Model,Resnet,SMPL,lbs}.py)
-- ``ops``      — Pallas/XLA fused kernels (soft-argmax, Gaussian heatmaps,
-                 fused residual MLP)
+- ``ops``      — soft-argmax decoding and Gaussian heatmaps (plain XLA)
 - ``losses``   — MPJPE, triangle cycle-consistency losses
                  (reference: phase5_loop/losses.py)
 - ``parallel`` — device mesh + sharding strategy (new: the reference is

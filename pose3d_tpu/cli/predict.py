@@ -15,16 +15,6 @@ Usage:
 
 from __future__ import annotations
 
-# --cpu must take effect BEFORE any import that can initialize jax's
-# backends (flax/orbax touch them at import): an unreachable TPU plugin
-# otherwise hangs the process before argument parsing even runs
-import sys
-
-if "--cpu" in sys.argv:
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", "cpu")
-
 import argparse
 import pathlib
 
@@ -48,8 +38,6 @@ def main(argv=None):
                         "reads the checkpoint's .meta.json sidecar (written "
                         "at train time — heads is not recoverable from "
                         "param shapes), falling back to 8")
-    p.add_argument("--cpu", action="store_true",
-                   help="force the CPU backend (handled at import)")
     args = p.parse_args(argv)
 
     import jax

@@ -19,15 +19,6 @@ Usage:
 
 from __future__ import annotations
 
-# --cpu must take effect BEFORE any import that can initialize jax's
-# backends (flax/orbax touch them at import)
-import sys
-
-if "--cpu" in sys.argv:
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", "cpu")
-
 import time
 
 import jax

@@ -5,8 +5,8 @@ Mirrors phase1_lifting/train_1.py's behavior — model zoo selection
 (:41), subjects S1..S8 train / S9,S11 test with an action filter (:48-49),
 per-epoch MPJPE in mm with the (17/16)x1000 convention (:102-104),
 flip-TTA validation (Flip flag), checkpoint + resume (:43-46, :186) —
-re-architected for TPU: whole epochs run as single jitted lax.scan programs
-(see pose3d_tpu.train.epoch), data lives in HBM for the whole run, and the
+re-architected for an accelerator: whole epochs run as single jitted lax.scan programs
+(see pose3d_tpu.train.epoch), data lives in device memory for the whole run, and the
 host only syncs once per epoch for logging.
 
 Usage:
@@ -15,16 +15,6 @@ Usage:
 """
 
 from __future__ import annotations
-
-# --cpu must take effect BEFORE any import that can initialize jax's
-# backends (flax/orbax touch them at import): an unreachable TPU plugin
-# otherwise hangs the process before argument parsing even runs
-import sys
-
-if "--cpu" in sys.argv:
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", "cpu")
 
 import pathlib
 

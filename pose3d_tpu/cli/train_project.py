@@ -11,16 +11,6 @@ Usage:
 
 from __future__ import annotations
 
-# --cpu must take effect BEFORE any import that can initialize jax's
-# backends (flax/orbax touch them at import): an unreachable TPU plugin
-# otherwise hangs the process before argument parsing even runs
-import sys
-
-if "--cpu" in sys.argv:
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", "cpu")
-
 import dataclasses
 
 import jax

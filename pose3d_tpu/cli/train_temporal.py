@@ -12,16 +12,6 @@ Usage:
 
 from __future__ import annotations
 
-# --cpu must take effect BEFORE any import that can initialize jax's
-# backends (flax/orbax touch them at import): an unreachable TPU plugin
-# otherwise hangs the process before argument parsing even runs
-import sys
-
-if "--cpu" in sys.argv:
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", "cpu")
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -61,7 +51,8 @@ def load_clips(cfg: TemporalConfig, is_train: bool):
 
 def train(cfg: TemporalConfig):
     model = TemporalLifter(clip_len=cfg.clip_len, hidden=cfg.hidden,
-                           n_blocks=cfg.n_blocks, heads=cfg.heads)
+                           n_blocks=cfg.n_blocks, heads=cfg.heads,
+                           dtype=jnp.bfloat16 if cfg.bf16 else jnp.float32)
     c2, c3 = load_clips(cfg, True)
     v2, v3 = load_clips(cfg, False)
     print(f"clips: train {c2.shape}, val {v2.shape}")
@@ -71,43 +62,27 @@ def train(cfg: TemporalConfig):
         model, jax.random.key(cfg.seed),
         jnp.zeros((2, cfg.clip_len, 17, 2)), lr=cfg.lr,
     )
-    fused = False
-    if (cfg.use_pallas_train and jax.default_backend() == "tpu"
-            and cfg.hidden == 256 and cfg.heads == 8):
-        # fused Pallas fwd+bwd sub-blocks (remat-in-kernel, dW accumulated
-        # across grid cells) — same math, grad-parity tested
-        # (tests/test_pallas_stblock_train.py)
-        from pose3d_tpu.ops.pallas_stblock_train import make_fused_train_apply
-
-        state = state.replace(apply_fn=make_fused_train_apply(
-            n_blocks=cfg.n_blocks, clip_len=cfg.clip_len))
-        fused = True
-        print("train step: fused Pallas sub-block kernels")
     state = jax.device_put(state, replicated(mesh))
     if cfg.resume and ckpt.exists(cfg.log_dir, cfg.run_name):
         state, _ = ckpt.restore(state, cfg.log_dir, cfg.run_name)
         print(f"resumed at step {int(state.step)}")
 
-    if fused and mesh.devices.size > 1:
-        # GSPMD cannot partition a pallas_call: multi-chip fused training
-        # goes through the shard_map DP step (single-device oracle:
-        # tests/test_mesh_temporal_fused.py)
-        from pose3d_tpu.train.steps import make_dp_lifter_train_step
-
-        step = make_dp_lifter_train_step(mesh, cfg.loss)
-        print(f"train step: shard_map DP over {mesh.devices.size} chips")
-    else:
-        step = make_lifter_train_step(cfg.loss)
+    # GSPMD data parallelism: the batch is sharded over the mesh's data
+    # axis by the device feed, params are replicated
+    step = make_lifter_train_step(cfg.loss)
     eval_step = make_lifter_eval_step(cfg.loss)
     logger = MetricLogger(cfg.log_dir, cfg.run_name, config={
         "learning_rate": cfg.lr, "architecture": "temporal_transformer",
         "clip_len": cfg.clip_len, "epochs": cfg.n_epochs,
     })
 
-    bs = min(cfg.batch_size, len(c2))
-    if fused and mesh.devices.size > 1:
-        bs -= bs % mesh.devices.size  # shard_map needs even shards
-        assert bs > 0, "batch smaller than the data axis"
+    def per_mesh(n):
+        # the device feed splits each batch evenly over the data axis
+        n -= n % mesh.devices.size
+        assert n > 0, f"batch smaller than the {mesh.devices.size} devices"
+        return n
+
+    bs = per_mesh(min(cfg.batch_size, len(c2)))
     n_train = (len(c2) // bs) * bs * cfg.clip_len
     for epoch in range(cfg.n_epochs):
         it = prefetch_to_device(
@@ -125,7 +100,7 @@ def train(cfg: TemporalConfig):
         state = state.replace(plateau=plateau_update(state.plateau, last))
 
         vit = prefetch_to_device(
-            batch_iterator((v2, v3), min(bs, len(v2)), shuffle=False,
+            batch_iterator((v2, v3), per_mesh(min(bs, len(v2))), shuffle=False,
                            epochs=1), mesh,
         )
         vloss, vsums, n_val = [], [], 0
@@ -146,7 +121,7 @@ def train(cfg: TemporalConfig):
     # heads is NOT recoverable from param shapes (qkv/proj are head-count
     # independent) — persist it (and the shape-derivable fields, for
     # debuggability) in the .meta.json sidecar so cli.predict can rebuild
-    # the exact architecture (ADVICE round 2)
+    # the exact architecture
     path = ckpt.save(
         state, cfg.log_dir, cfg.run_name, batch_size=cfg.batch_size,
         extra={"heads": cfg.heads, "hidden": cfg.hidden,

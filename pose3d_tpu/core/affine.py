@@ -7,7 +7,7 @@ jitter (:40-76 ``addDPG``), ``transform_preds``/``heatmap_to_coord``
 (:1211-1265: heatmap uv in [-0.5,0.5] -> pixel coords through the inverse
 bbox affine), ``rotate_xyz_jts`` (:1053-1063) and ``rot_aa`` (:1039-1050).
 
-TPU-first notes: the affine solve is closed-form numpy (no cv2 dependency
+Design notes: the affine solve is closed-form numpy (no cv2 dependency
 for the math; cv2 is only used to warp actual pixels host-side);
 ``affine_transform``/``transform_preds`` are vectorized over arbitrary
 leading axes and jnp-compatible so the decode runs on device.

@@ -4,7 +4,7 @@ Reference semantics: phase3_direct/my_HybrIK/utils.py:324-340 (``q_conjugate``,
 ``q_mult``, ``qv_mult``) — scalar-first (w,x,y,z) Hamilton quaternions, vector
 rotation via q * (0,v) * q^-1.
 
-TPU-first design: everything is batched over leading axes and closed over
+Design: everything is batched over leading axes and closed over
 jnp primitives, so a whole (N,17,3) point cloud rotates in one fused kernel
 (vs. the reference's per-joint python loop at H36_dataset.py:358-360).
 """

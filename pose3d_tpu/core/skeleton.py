@@ -9,9 +9,9 @@ Behavioral contracts reproduced from the reference:
 - COCO->H36M remap with synthesized root/belly/neck/head midpoints:
   phase2_opp_mb/run.py:15-58 (``coco2h36m``)
 
-TPU-first design: the COCO->H36M remap is expressed as a constant (17,17)
-mixing matrix so a whole clip remaps as one einsum (vmap/jit friendly, runs on
-the MXU for large batches) instead of the reference's per-row numpy assignment.
+Design: the COCO->H36M remap is expressed as a constant (17,17)
+mixing matrix so a whole clip remaps as one einsum (vmap/jit friendly, a
+matrix-unit op for large batches) instead of the reference's per-row numpy assignment.
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def coco_to_h36m(x):
     import jax.numpy as jnp
 
     # HIGHEST precision: keypoint coordinates must not round through bf16
-    # on the MXU — this matmul is a remap, not a compute hot spot.
+    # or TF32 — this matmul is a remap, not a compute hot spot.
     return jnp.matmul(
         jnp.asarray(COCO_TO_H36M_MATRIX, dtype=x.dtype),
         x,

@@ -10,7 +10,7 @@ Behavioral contracts reproduced from the reference:
 - zero-centring: H36_dataset.py:209-211 + :286-289 — subtract the root joint
   from joints 1: and zero the root.
 
-TPU-first design: all functions are pure jnp over arbitrary leading batch
+Design: all functions are pure jnp over arbitrary leading batch
 axes (the reference loops per-frame in python); flips use a constant gather
 permutation which XLA fuses into the surrounding computation.
 """

@@ -1,8 +1,8 @@
-"""Double-buffered host->HBM input pipeline.
+"""Double-buffered host->device input pipeline.
 
 Replaces the reference's ``DataLoader(num_workers=2, prefetch_factor=2)``
 fork-based feed (train_1.py:51-52 etc.) with an async device-put prefetcher:
-while the TPU executes step N, the host has already enqueued the transfer for
+while the device executes step N, the host has already enqueued the transfer for
 step N+1 (and N+2 with depth=2). ``jax.device_put`` is asynchronous, so the
 "buffer" is the queue of in-flight transfers; depth controls how many batches
 are kept in flight — the north-star requirement that the lifter never stalls
@@ -47,7 +47,7 @@ def prefetch_to_device(iterator, mesh, depth: int = 2):
 
     Each batch is device_put with batch-axis NamedSharding (each chip gets
     its shard directly — no replicate-then-slice) and yielded only after the
-    queue is primed, overlapping H2D DMA with TPU compute.
+    queue is primed, overlapping H2D DMA with device compute.
     """
     sharding = batch_sharding(mesh)
     queue = collections.deque()

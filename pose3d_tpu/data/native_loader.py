@@ -1,7 +1,7 @@
 """ctypes bindings for the C++ data loader (pose3d_tpu/native/loader.cc).
 
 The native side does threaded JPEG decode + bilinear resize + /256
-normalization straight into the batch buffer — the TPU-native replacement
+normalization straight into the batch buffer — the native replacement
 for the reference's forked python DataLoader workers (train_1.py:51-52).
 Falls back to cv2 transparently when the shared library (or a compiler to
 build it) is unavailable, so nothing hard-depends on the native path.

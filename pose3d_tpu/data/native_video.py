@@ -2,7 +2,7 @@
 
 The native side decodes a video container straight into the caller's batch
 buffer — centre-crop square, resize, RGB, uint8 or /256 float32 — the
-TPU-native replacement for the reference's ffmpeg-subprocess + per-frame
+Native replacement for the reference's ffmpeg-subprocess + per-frame
 python cv2 pipeline (phase2 run.py:31-57, phase4
 Custom_Video_dataset.py:44-73). Falls back to python cv2 transparently when
 the shared library (or OpenCV C++) is unavailable, so nothing hard-depends

@@ -97,7 +97,7 @@ def render_pose_frames(kp2d, key, size: int = 256, sigma: float = 2.5,
                        noise: float = 0.12):
     """Render (B,17,2) [0,1] keypoints into (B,size,size,3) skeleton frames.
 
-    TPU-native replacement for a real camera: every joint is a separable
+    On-device replacement for a real camera: every joint is a separable
     2D gaussian blob in its palette color and every bone a chain of
     interior blobs, composited with ONE einsum (the on-device target-
     synthesis trick from ops/heatmap.py applied to RGB), plus uniform

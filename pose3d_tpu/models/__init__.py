@@ -1,16 +1,6 @@
-"""Model zoo: lifters, backbones, heatmap heads, temporal, SMPL/IK."""
+"""Model zoo: lifters, backbones, heatmap heads, temporal, SMPL/IK.
 
-from pose3d_tpu.models.heads import (  # noqa: F401
-    DeconvHead,
-    PoseNet2D,
-    PoseNet3D,
-    ProjectionMLP,
-)
-from pose3d_tpu.models.lifters import (  # noqa: F401
-    AELifter,
-    JointTransformerLifter,
-    MartinezLifter,
-)
-from pose3d_tpu.models.resnet import ResNet, load_torch_resnet  # noqa: F401
-from pose3d_tpu.models.smpl_pose import HybrIKPose, PoseSMPLNet  # noqa: F401
-from pose3d_tpu.models.temporal import TemporalLifter, make_clips  # noqa: F401
+Import models from their modules. The lifters (``lifters``, ``temporal``)
+are plain JAX; the image models (``resnet``, ``heads``, ``smpl_pose``) use
+``flax.linen``, so nothing here is imported eagerly.
+"""

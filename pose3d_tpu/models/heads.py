@@ -15,9 +15,9 @@ Reference contracts:
 - ``PoseNet2D`` <- ``Model_2D`` (phase5_loop/Model_2d.py:13-138):
   depth_dim=1, 2D soft-argmax, coords in [0,1], output (B, 17*2).
 
-TPU-first: NHWC throughout; ConvTranspose stride-2 SAME padding doubles the
-spatial dims exactly like torch's (4,2,1) deconv; the softmax/soft-argmax
-decode is one fused XLA computation (pose3d_tpu.ops.heatmap).
+NHWC throughout; ConvTranspose stride-2 SAME padding doubles the spatial
+dims exactly like torch's (4,2,1) deconv; the softmax/soft-argmax decode is
+one fused XLA computation (pose3d_tpu.ops.heatmap).
 """
 
 from __future__ import annotations
@@ -30,7 +30,11 @@ from pose3d_tpu.models.norm import BatchNorm
 import jax.numpy as jnp
 
 from pose3d_tpu.models.resnet import ResNet, _bn
-from pose3d_tpu.ops.heatmap import soft_argmax_2d, soft_argmax_3d
+from pose3d_tpu.ops.heatmap import (
+    soft_argmax_2d,
+    soft_argmax_3d,
+    soft_argmax_3d_nhwc,
+)
 
 
 class DeconvHead(nn.Module):
@@ -42,7 +46,7 @@ class DeconvHead(nn.Module):
     dtype: jnp.dtype = jnp.float32
 
     @nn.compact
-    def __call__(self, x, *, train: bool, decode=None):
+    def __call__(self, x, *, train: bool):
         for f in self.filters:
             x = nn.ConvTranspose(f, (4, 4), (2, 2), padding="SAME",
                                  use_bias=False, dtype=self.dtype)(x)
@@ -50,19 +54,7 @@ class DeconvHead(nn.Module):
             x = nn.relu(x)
             if self.dropout:
                 x = nn.Dropout(self.dropout, deterministic=not train)(x)
-        conv = nn.Conv(self.out_channels, (1, 1), dtype=self.dtype)
-        if decode is None:
-            return conv(x)
-        # fused epilogue: the decode consumes the trunk features plus the
-        # conv's own weights so the (B,H,W,out_channels) logits never exist
-        # in HBM (ops/pallas_conv_decode). A 1-pixel call binds the params
-        # under the unchanged "Conv_0" name — checkpoints and torch
-        # transplants are layout-identical to the unfused head.
-        _ = conv(x[:1, :1, :1])
-        params = self.variables["params"]["Conv_0"]
-        kernel = params["kernel"][0, 0].astype(self.dtype)
-        bias = params["bias"].astype(self.dtype)
-        return decode(x, kernel, bias)
+        return nn.Conv(self.out_channels, (1, 1), dtype=self.dtype)(x)
 
 
 class PoseNet3D(nn.Module):
@@ -78,70 +70,22 @@ class PoseNet3D(nn.Module):
     depth: int = 64
     z_scale: float = 2.5
     return_heatmap: bool = True
-    use_pallas: bool = True  # fused decode kernel on TPU (coords-only path)
-    # also take the Pallas decode (fused fwd+bwd) in TRAINING; see
-    # ROUND2_NOTES "decode" for the measured XLA-vs-kernel train-step
-    # numbers behind the default
-    use_pallas_train: bool = False
-    # fuse the final 1x1 conv INTO the decode (ops/pallas_conv_decode):
-    # the (B,H,W,J*D) logits never exist in HBM in either direction —
-    # forward and backward both read the trunk features exactly once.
-    # Applies to both train and eval (coords-only path). On-chip ladder
-    # (round 5, identical-executable estimator): the fused epilogue wins
-    # the full train step by a consistent ~1.1% (49.2 vs 49.8 ms at B=64;
-    # the step is conv-bound, so the 13.5->4.8 ms epilogue win is diluted).
-    # Opt-in because it is TPU-only; like every pallas_call it is NOT
-    # partitionable by GSPMD — use it single-chip or inside a shard_map DP
-    # step (train.image_steps.make_dp_direct_train_step), not under a
-    # jit-with-shardings mesh.
-    fuse_final_conv: bool = False
     dtype: jnp.dtype = jnp.float32
 
     @nn.compact
     def __call__(self, x, *, train: bool = False):
-        import jax
-
         feats = ResNet(self.architecture, dtype=self.dtype, name="backbone")(
             x, train=train
         )
-        head = DeconvHead(
+        logits = DeconvHead(
             out_channels=self.num_joints * self.depth, dtype=self.dtype,
             name="head",
-        )
-        if self.fuse_final_conv and not self.return_heatmap:
-            from pose3d_tpu.ops.pallas_conv_decode import (
-                conv_soft_argmax_3d_fused,
-            )
-
-            def decode(trunk, kernel, bias):
-                return conv_soft_argmax_3d_fused(
-                    trunk, kernel, bias, self.num_joints, self.depth,
-                    z_scale=self.z_scale,
-                )
-
-            coords = head(feats, train=train, decode=decode)
-            return coords, None
-        logits = head(feats, train=train)
+        )(feats, train=train)
         b, h, w, _ = logits.shape
         if not self.return_heatmap:
-            if (self.use_pallas and (not train or self.use_pallas_train)
-                    and jax.default_backend() == "tpu"):
-                # fused transpose-free decode straight off the NHWC conv
-                # output: single VMEM pass forward, fused Pallas backward
-                # (used in training only under use_pallas_train)
-                from pose3d_tpu.ops.pallas_softargmax import (
-                    soft_argmax_3d_nhwc_pallas,
-                )
-
-                coords = soft_argmax_3d_nhwc_pallas(
-                    logits, self.num_joints, self.depth,
-                    z_scale=self.z_scale,
-                )
-                return coords, None
-            # training path: decode straight from NHWC (no 1GB-scale layout
-            # transpose in forward/backward; XLA fuses it into the step)
-            from pose3d_tpu.ops.heatmap import soft_argmax_3d_nhwc
-
+            # decode straight from NHWC: no layout transpose of the
+            # (B,H,W,J*D) logits in forward or backward; XLA fuses the
+            # softmax and the three weighted sums into the step
             coords = soft_argmax_3d_nhwc(
                 logits, self.num_joints, self.depth, z_scale=self.z_scale,
             )

@@ -6,7 +6,7 @@ eval path with global-position correction and the >15 mm outlier clamp),
 :1052-1088 (three-children SVD — present in the reference but disabled by the
 children-map override at SMPL.py:158-160; see smpl.children_map).
 
-TPU-first redesign:
+Redesign:
 - the per-joint python recursion over the 24/29-joint tree (a serial chain of
   per-joint (B,3,3) ops with data-dependent boolean indexing) becomes a loop
   over the tree's 10 static depth levels; every joint in a level is processed

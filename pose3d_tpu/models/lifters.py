@@ -1,14 +1,14 @@
-"""2D->3D keypoint lifting models.
+"""2D->3D keypoint lifting models, in plain ``jax.numpy``.
 
-TPU-native equivalents of the reference lifter zoo
-(phase1_lifting/baselineModel.py):
+Equivalents of the reference lifter zoo (phase1_lifting/baselineModel.py):
 
 - :class:`MartinezLifter`  <- ``LinearModel`` (baselineModel.py:50-102):
   Martinez-style residual MLP — Flatten -> Dense(1024) -> BN -> ReLU ->
-  Dropout -> ``num_stage`` x residual block -> Dense(out).
-- :class:`MartinezBlock`   <- ``Linear`` (baselineModel.py:14-47).
+  Dropout -> ``num_stages`` x residual block -> Dense(out). Each block
+  (``MartinezBlock_i``, reference ``Linear``, baselineModel.py:14-47) is
+  2x (Dense -> BN -> ReLU -> Dropout) + skip.
 - :class:`AELifter`        <- ``AE`` (baselineModel.py:135-215): the active
-  path is encoder2/decoder2 (1024-wide BN MLP); Tanh on 2D outputs.
+  path is encoder2/decoder2 (1024-wide BN MLP).
 - :class:`JointTransformerLifter` <- ``MyViT`` (baselineModel.py:312-362):
   17 joint tokens -> Dense to hidden 256 -> fixed (non-trainable) sinusoidal
   positional embedding -> 2 pre-LN transformer blocks (4 heads) -> per-token
@@ -19,23 +19,33 @@ Behavioral notes kept for parity:
 - the reference's Attention module (baselineModel.py:228-253, from lucidrains
   simple_vit) applies its own LayerNorm *in addition to* the block's pre-LN
   (baselineModel.py:308) — the double normalization is reproduced since it is
-  what the trained reference computes;
+  what the trained reference computes; its qkv and output projections have
+  no bias;
 - positional embeddings use the reference's exact sin/cos formula
-  (baselineModel.py:220-225) and are not trained (baselineModel.py:329-330).
+  (baselineModel.py:220-225) and are not trained (baselineModel.py:329-330);
+- every LayerNorm uses epsilon 1e-5, the torch default the reference
+  inherits (a 1e-6 epsilon was a real ~1e-6-relative forward divergence,
+  caught by the f64 train-step parity tests in
+  tests/test_reference_parity_train.py).
 
-TPU-first design: all dims (1024, 256) are MXU-tile aligned; compute dtype is
-configurable (bfloat16 for throughput, float32 params); BatchNorm under
-data-parallel jit sees the full logical batch, so cross-replica statistics
-come for free from GSPMD (SURVEY.md section 2.7).
+Compute dtype is configurable (bfloat16 for throughput, float32 params).
+BatchNorm under data-parallel jit sees the full logical batch, so
+cross-replica statistics come for free from GSPMD (SURVEY.md section 2.7).
+The init/apply contract and parameter names are described in
+``models/layers.py``.
 """
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+import math
+from typing import Any
 
-from pose3d_tpu.models.norm import BatchNorm
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+from pose3d_tpu.models import layers as L
 
 
 def sinusoidal_positional_embeddings(sequence_length: int, d: int) -> np.ndarray:
@@ -50,31 +60,46 @@ def sinusoidal_positional_embeddings(sequence_length: int, d: int) -> np.ndarray
     return pe.astype(np.float32)
 
 
-class MartinezBlock(nn.Module):
-    """Residual block: 2x (Dense -> BN -> ReLU -> Dropout) + skip."""
+class _Sites:
+    """Hands out one dropout key per dropout site (None when evaluating)."""
 
-    size: int = 1024
-    dropout: float = 0.5
-    use_bn: bool = True
-    dtype: jnp.dtype = jnp.float32
+    def __init__(self, rng):
+        self.rng, self.i = rng, 0
 
-    @nn.compact
-    def __call__(self, x, *, train: bool):
-        y = x
-        for _ in range(2):
-            y = nn.Dense(self.size, dtype=self.dtype)(y)
-            if self.use_bn:
-                y = BatchNorm(
-                    use_running_average=not train, momentum=0.9, epsilon=1e-5,
-                    dtype=self.dtype,
-                )(y)
-            y = nn.relu(y)
-            y = nn.Dropout(self.dropout, deterministic=not train)(y)
-        return x + y
+    def next(self):
+        if self.rng is None:
+            return None
+        self.i += 1
+        return jax.random.fold_in(self.rng, self.i)
 
 
-class MartinezLifter(nn.Module):
-    """Martinez-style residual-MLP lifter (reference ``LinearModel``)."""
+def _unit_init(keys, params, stats, i, d_in, d_out, use_bn):
+    params[f"Dense_{i}"] = L.dense_init(next(keys), d_in, d_out)
+    if use_bn:
+        params[f"BatchNorm_{i}"] = L.norm_init(d_out)
+        stats[f"BatchNorm_{i}"] = L.batch_stats_init(d_out)
+
+
+def _unit(params, stats, new_stats, i, y, model, train, sites):
+    """Dense_i -> BatchNorm_i -> ReLU -> Dropout."""
+    y = L.dense(params[f"Dense_{i}"], y, model.dtype)
+    if model.use_bn:
+        y, new_stats[f"BatchNorm_{i}"] = L.batch_norm(
+            params[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"], y,
+            train=train, dtype=model.dtype)
+    y = jax.nn.relu(y)
+    return L.dropout(y, model.dropout, sites.next())
+
+
+def _variables(params, stats, use_bn):
+    return {"params": params, "batch_stats": stats} if use_bn else {
+        "params": params}
+
+
+@dataclasses.dataclass(frozen=True)
+class MartinezLifter(L.Model):
+    """Martinez-style residual-MLP lifter (reference ``LinearModel``).
+    x: (B, 17, 2) or (B, in_dim) -> (B, out_dim)."""
 
     in_dim: int = 34           # 17 joints x 2
     out_dim: int = 51          # 17 joints x 3
@@ -82,29 +107,46 @@ class MartinezLifter(nn.Module):
     num_stages: int = 2
     dropout: float = 0.5
     use_bn: bool = True
-    dtype: jnp.dtype = jnp.float32
+    dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, x, *, train: bool = False):
-        """x: (B, 17, 2) or (B, in_dim). Returns (B, out_dim)."""
+    def _init(self, key, x):
+        keys = iter(jax.random.split(key, 2 + 2 * self.num_stages))
+        h = self.hidden
+        params, stats = {}, {}
+        _unit_init(keys, params, stats, 0, math.prod(x.shape[1:]), h,
+                   self.use_bn)
+        for s in range(self.num_stages):
+            bp, bs = {}, {}
+            for i in range(2):
+                _unit_init(keys, bp, bs, i, h, h, self.use_bn)
+            params[f"MartinezBlock_{s}"] = bp
+            if self.use_bn:
+                stats[f"MartinezBlock_{s}"] = bs
+        params["Dense_1"] = L.dense_init(next(keys), h, self.out_dim)
+        return _variables(params, stats, self.use_bn)
+
+    def _forward(self, variables, x, train, rng):
+        p = variables["params"]
+        s = variables.get("batch_stats", {})
+        new, sites = {}, _Sites(rng)
         y = x.reshape(x.shape[0], -1).astype(self.dtype)
-        y = nn.Dense(self.hidden, dtype=self.dtype)(y)
-        if self.use_bn:
-            y = BatchNorm(
-                use_running_average=not train, momentum=0.9, epsilon=1e-5,
-                dtype=self.dtype,
-            )(y)
-        y = nn.relu(y)
-        y = nn.Dropout(self.dropout, deterministic=not train)(y)
-        for _ in range(self.num_stages):
-            y = MartinezBlock(
-                self.hidden, self.dropout, self.use_bn, dtype=self.dtype
-            )(y, train=train)
-        y = nn.Dense(self.out_dim, dtype=self.dtype)(y)
-        return y.astype(jnp.promote_types(self.dtype, jnp.float32))
+        y = _unit(p, s, new, 0, y, self, train, sites)
+        for b in range(self.num_stages):
+            name = f"MartinezBlock_{b}"
+            bs, bnew = s.get(name, {}), {}
+            z = y
+            for i in range(2):
+                z = _unit(p[name], bs, bnew, i, z, self, train, sites)
+            y = y + z
+            if self.use_bn:
+                new[name] = bnew
+        y = L.dense(p["Dense_1"], y, self.dtype)
+        return y.astype(L.out_dtype(self.dtype)), (new if self.use_bn
+                                                   else None)
 
 
-class AELifter(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class AELifter(L.Model):
     """Autoencoder lifter — the reference ``AE``'s active encoder2/decoder2
     path (baselineModel.py:186-215): Flatten -> [Dense(1024) BN ReLU Drop]x2
     -> Dense(1024) BN ReLU Drop -> Dense(out).
@@ -120,82 +162,61 @@ class AELifter(nn.Module):
     out_dim: int = 51
     hidden: int = 1024
     dropout: float = 0.5
-    dtype: jnp.dtype = jnp.float32
+    dtype: Any = jnp.float32
+    use_bn = True  # not a field: the reference AE always normalises
 
-    @nn.compact
-    def __call__(self, x, *, train: bool = False):
+    def _init(self, key, x):
+        keys = iter(jax.random.split(key, 4))
+        params, stats = {}, {}
+        d_in = math.prod(x.shape[1:])
+        for i in range(3):  # encoder2 has 2 blocks, decoder2 one more
+            _unit_init(keys, params, stats, i, d_in if i == 0 else self.hidden,
+                       self.hidden, True)
+        params["Dense_3"] = L.dense_init(next(keys), self.hidden,
+                                         self.out_dim)
+        return _variables(params, stats, True)
+
+    def _forward(self, variables, x, train, rng):
+        p, s = variables["params"], variables["batch_stats"]
+        new, sites = {}, _Sites(rng)
         y = x.reshape(x.shape[0], -1).astype(self.dtype)
-        for _ in range(3):  # encoder2 has 2 blocks, decoder2 one more
-            y = nn.Dense(self.hidden, dtype=self.dtype)(y)
-            y = BatchNorm(
-                use_running_average=not train, momentum=0.9, epsilon=1e-5,
-                dtype=self.dtype,
-            )(y)
-            y = nn.relu(y)
-            y = nn.Dropout(self.dropout, deterministic=not train)(y)
-        y = nn.Dense(self.out_dim, dtype=self.dtype)(y)
-        return y.astype(jnp.promote_types(self.dtype, jnp.float32))
+        for i in range(3):
+            y = _unit(p, s, new, i, y, self, train, sites)
+        y = L.dense(p["Dense_3"], y, self.dtype)
+        return y.astype(L.out_dtype(self.dtype)), new
 
 
-class JointAttention(nn.Module):
-    """Multi-head self-attention over joint tokens (baselineModel.py:228-253).
-
-    Includes the module-local LayerNorm of the reference (lucidrains
-    simple_vit style); qkv and output projections have no bias.
-
-    All LayerNorms in this file use epsilon=1e-5 — the torch default the
-    reference inherits (flax defaults to 1e-6; the mismatch was a real
-    ~1e-6-relative forward divergence, caught by the f64 train-step parity
-    tests in tests/test_reference_parity_train.py).
-    """
-
-    dim: int
-    heads: int
-    dtype: jnp.dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x):
-        dim_head = self.dim // self.heads
-        y = nn.LayerNorm(epsilon=1e-5, dtype=self.dtype)(x)
-        qkv = nn.Dense(3 * self.dim, use_bias=False, dtype=self.dtype)(y)
-        q, k, v = jnp.split(qkv, 3, axis=-1)
-
-        def heads(t):  # (B, N, H*D) -> (B, H, N, D)
-            b, n, _ = t.shape
-            return t.reshape(b, n, self.heads, dim_head).transpose(0, 2, 1, 3)
-
-        q, k, v = heads(q), heads(k), heads(v)
-        attn = jnp.einsum("bhnd,bhmd->bhnm", q, k) * (dim_head ** -0.5)
-        acc = jnp.promote_types(self.dtype, jnp.float32)
-        attn = nn.softmax(attn.astype(acc), axis=-1).astype(self.dtype)
-        out = jnp.einsum("bhnm,bhmd->bhnd", attn, v)
-        b, _, n, _ = out.shape
-        out = out.transpose(0, 2, 1, 3).reshape(b, n, self.dim)
-        return nn.Dense(self.dim, use_bias=False, dtype=self.dtype)(out)
+def _vit_block_init(key, dim: int, mlp_ratio: int = 4) -> dict:
+    k = jax.random.split(key, 4)
+    return {
+        "LayerNorm_0": L.norm_init(dim),
+        "JointAttention_0": {
+            "LayerNorm_0": L.norm_init(dim),
+            "Dense_0": L.dense_init(k[0], dim, 3 * dim, bias=False),
+            "Dense_1": L.dense_init(k[1], dim, dim, bias=False),
+        },
+        "LayerNorm_1": L.norm_init(dim),
+        "Dense_0": L.dense_init(k[2], dim, mlp_ratio * dim),
+        "Dense_1": L.dense_init(k[3], mlp_ratio * dim, dim),
+    }
 
 
-class TransformerBlock(nn.Module):
+def _vit_block(p, x, heads: int, dtype):
     """Pre-LN block (baselineModel.py:291-310): x + MHSA(LN(x));
-    x + MLP(LN(x)) with GELU, mlp_ratio=4."""
-
-    dim: int
-    heads: int
-    mlp_ratio: int = 4
-    dtype: jnp.dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x):
-        x = x + JointAttention(self.dim, self.heads, dtype=self.dtype)(
-            nn.LayerNorm(epsilon=1e-5, dtype=self.dtype)(x)
-        )
-        y = nn.LayerNorm(epsilon=1e-5, dtype=self.dtype)(x)
-        y = nn.Dense(self.mlp_ratio * self.dim, dtype=self.dtype)(y)
-        y = nn.gelu(y, approximate=False)
-        y = nn.Dense(self.dim, dtype=self.dtype)(y)
-        return x + y
+    x + MLP(LN(x)) with exact GELU. MHSA applies its own LayerNorm first
+    (the reference's double normalization)."""
+    a = p["JointAttention_0"]
+    y = L.layer_norm(a["LayerNorm_0"], L.layer_norm(p["LayerNorm_0"], x, dtype),
+                     dtype)
+    y = L.attention(L.dense(a["Dense_0"], y, dtype), heads, dtype)
+    x = x + L.dense(a["Dense_1"], y, dtype)
+    y = L.layer_norm(p["LayerNorm_1"], x, dtype)
+    y = jax.nn.gelu(L.dense(p["Dense_0"], y, dtype), approximate=False)
+    return x + L.dense(p["Dense_1"], y, dtype)
 
 
-class JointTransformerLifter(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class JointTransformerLifter(L.Model):
     """Joint-token transformer lifter (reference ``MyViT``).
 
     (B, n_joints, in_dim) -> (B, n_joints, out_dim). Defaults mirror
@@ -209,28 +230,38 @@ class JointTransformerLifter(nn.Module):
     n_blocks: int = 2
     heads: int = 4
     class_token: bool = False  # two2three.py:314-384 variant
-    dtype: jnp.dtype = jnp.float32
+    dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, x, *, train: bool = False):
-        del train  # no dropout/BN in the reference transformer path
-        x = x.astype(self.dtype)
-        tokens = nn.Dense(self.hidden, dtype=self.dtype)(x)
-        seq = self.n_joints + (1 if self.class_token else 0)
+    def _init(self, key, x):
+        k = jax.random.split(key, self.n_blocks + 4)
+        h = self.hidden
+        params = {
+            "Dense_0": L.dense_init(k[0], x.shape[-1], h),
+            "Dense_1": L.dense_init(k[1], h, h // 2),
+            "Dense_2": L.dense_init(k[2], h // 2, self.out_dim),
+        }
         if self.class_token:
-            cls = self.param("cls_token", nn.initializers.normal(0.02),
-                             (1, 1, self.hidden))
-            cls = jnp.broadcast_to(
-                cls.astype(self.dtype), (x.shape[0], 1, self.hidden)
-            )
+            params["cls_token"] = 0.02 * jax.random.normal(
+                k[3], (1, 1, h), jnp.float32)
+        for i in range(self.n_blocks):
+            params[f"TransformerBlock_{i}"] = _vit_block_init(k[4 + i], h)
+        return {"params": params}
+
+    def _forward(self, variables, x, train, rng):
+        del train, rng  # no dropout/BN in the reference transformer path
+        p, dt = variables["params"], self.dtype
+        tokens = L.dense(p["Dense_0"], x, dt)
+        if self.class_token:
+            cls = jnp.broadcast_to(p["cls_token"].astype(dt),
+                                   (x.shape[0], 1, self.hidden))
             tokens = jnp.concatenate([cls, tokens], axis=1)
-        pe = sinusoidal_positional_embeddings(seq, self.hidden)
-        tokens = tokens + jnp.asarray(pe, dtype=self.dtype)
-        for _ in range(self.n_blocks):
-            tokens = TransformerBlock(self.hidden, self.heads, dtype=self.dtype)(tokens)
+        pe = sinusoidal_positional_embeddings(tokens.shape[1], self.hidden)
+        tokens = tokens + jnp.asarray(pe, dtype=dt)
+        for i in range(self.n_blocks):
+            tokens = _vit_block(p[f"TransformerBlock_{i}"], tokens,
+                                self.heads, dt)
         if self.class_token:
             tokens = tokens[:, 1:]
-        y = nn.Dense(self.hidden // 2, dtype=self.dtype)(tokens)
-        y = nn.relu(y)
-        y = nn.Dense(self.out_dim, dtype=self.dtype)(y)
-        return y.astype(jnp.promote_types(self.dtype, jnp.float32))
+        y = jax.nn.relu(L.dense(p["Dense_1"], tokens, dt))
+        y = L.dense(p["Dense_2"], y, dt)
+        return y.astype(L.out_dtype(dt)), None

@@ -34,6 +34,8 @@ import jax
 import jax.numpy as jnp
 from flax import linen as nn
 
+from pose3d_tpu.models.layers import batch_moments, update_running
+
 
 class BatchNorm(nn.Module):
     """torch.nn.BatchNorm1d/2d semantics over the trailing feature axis.
@@ -69,20 +71,13 @@ class BatchNorm(nn.Module):
         if self.use_running_average:
             mean, var = ra_mean.value, ra_var.value
         else:
-            reduce_axes = tuple(range(x.ndim - 1))
-            n = 1
-            for a in reduce_axes:
-                n *= x.shape[a]
-            xf = x.astype(stat_dtype)
-            mean = jnp.mean(xf, axis=reduce_axes)
             # biased variance normalizes the batch (torch train path)
-            var = jnp.mean(jnp.square(xf), axis=reduce_axes) - jnp.square(mean)
-            var = jnp.maximum(var, 0.0)
+            mean, var, n = batch_moments(x)
             if not self.is_initializing():
-                m = self.momentum
-                unbiased = var * (n / max(n - 1, 1))
-                ra_mean.value = m * ra_mean.value + (1.0 - m) * mean
-                ra_var.value = m * ra_var.value + (1.0 - m) * unbiased
+                new = update_running(
+                    {"mean": ra_mean.value, "var": ra_var.value}, mean, var,
+                    n, self.momentum)
+                ra_mean.value, ra_var.value = new["mean"], new["var"]
 
         y = (x.astype(stat_dtype) - mean) * jax.lax.rsqrt(
             var + jnp.asarray(self.epsilon, var.dtype))

@@ -8,8 +8,7 @@ the (H/32, W/32, 2048|512) feature map consumed by the deconv head. The
 reference's unused DCN hooks (Resnet.py:74-84) are dead code and not
 reproduced.
 
-TPU-first: NHWC layout (the TPU-native convolution layout; the reference is
-NCHW), compute dtype configurable for bf16 throughput, BatchNorm statistics
+NHWC layout (the reference is NCHW; cuDNN takes NHWC for bf16 convolutions), compute dtype configurable for bf16 throughput, BatchNorm statistics
 are global under data-parallel jit via GSPMD.
 
 ImageNet warm-start: the reference state-dict surgery (Model.py:30-38) maps

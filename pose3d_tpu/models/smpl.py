@@ -5,13 +5,13 @@ Reference contract: phase3_direct/my_HybrIK/SMPL.py:38-219 (buffer layout,
 and lbs.py:195-288 (``lbs``: shape blendshapes -> joint regression ->
 rodrigues -> rigid transform chain -> skinning -> H36M joint regression).
 
-TPU-first redesign:
+Redesign:
 - the FK accumulation (lbs.py:516-530, a python loop of 23 sequential (B,4,4)
   matmuls) runs level-by-level over the kinematic tree: joints at the same
   depth batch into ONE (B,K,4,4) matmul, cutting the sequential chain from 23
   to 8 steps (the tree's depth);
 - all blendshape/skinning contractions are einsums that map directly onto
-  the MXU; buffers are plain jnp arrays in a pytree (no nn.Module state).
+  the matrix units; buffers are plain jnp arrays in a pytree (no nn.Module state).
 
 Assets: the SMPL pickle (basicModel_neutral_lbs_10_207_0_v1.0.0.pkl) and
 J_regressor_h36m.npy are licensed artifacts not shipped here

@@ -5,141 +5,80 @@ MotionBERT repo (243-frame clips, invoked manually — phase2_opp_mb/
 run.py:475-478; only the (T,17,3) npy outputs are consumed). This module is
 the native implementation mandated by BASELINE config #3: a MotionBERT-style
 alternating spatial/temporal attention transformer that lifts (B, T, 17, 2)
-2D-keypoint clips to (B, T, 17, 3) 3D sequences.
+2D-keypoint clips to (B, T, 17, 3) 3D sequences. Plain ``jax.numpy``; the
+init/apply contract and parameter names are described in
+``models/layers.py``.
 
-Architecture (MotionBERT/DSTformer family, re-designed for TPU):
+Architecture (MotionBERT/DSTformer family):
 - joint tokens embedded to ``hidden``; learned spatial (17) and temporal (T)
   positional embeddings;
 - each block runs attention over joints within a frame (sequence length 17,
   batch B*T) then attention over time per joint (sequence length T, batch
-  B*17), each with a pre-LN MLP — both attentions are large batched matmuls
-  that map straight onto the MXU;
+  B*17), each with a pre-LN MLP;
 - at clip length 243 full temporal attention fits comfortably (243^2 scores);
   scale-out is batch sharding over the mesh (SURVEY.md section 5
-  "long-context" note), with jax.checkpoint available per block for memory.
+  "long-context" note), with ``remat`` recomputing each block in the
+  backward pass when memory needs it.
 """
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+from typing import Any
+
 import jax
 import jax.numpy as jnp
 
-
-class _MHSA(nn.Module):
-    dim: int
-    heads: int
-    # use the stock Pallas flash-attention kernel (jax.experimental.pallas.
-    # ops.tpu.flash_attention) instead of materializing the (L,L) score
-    # matrix — worthwhile for long temporal windows (L >~ 512); requires a
-    # TPU backend and L to be block-aligned.
-    flash: bool = False
-    # custom packed-attention Pallas kernels (ops/pallas_attention): the
-    # profile-measured fix for XLA's <1% MXU on this model's two attention
-    # shapes (seq 17 pads (17,17) scores to (32,128) tiles; seq 243
-    # round-trips f32 scores + head transposes through HBM). Forward runs
-    # the kernel, backward recomputes via XLA (custom_vjp), so the flag is
-    # training-safe. ROUND2_NOTES "temporal attention" section.
-    use_pallas: bool = False
-    dtype: jnp.dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x):  # (N, L, dim)
-        n, l, _ = x.shape
-        d = self.dim // self.heads
-        qkv_dense = nn.Dense(3 * self.dim, use_bias=True, dtype=self.dtype)
-        proj_dense = nn.Dense(self.dim, dtype=self.dtype)
-        if self.use_pallas and jax.default_backend() == "tpu":
-            # FLAT-row formulation: (N*L, dim) tiles the (sublane, lane)
-            # grid exactly — (N, 17, dim) pads 17 -> 32 sublanes. Measured
-            # (ROUND2_NOTES): 1.34x on inference vs the 3D XLA apply; but
-            # the reshape relayouts in the BACKWARD cost more than they
-            # save (57.5 -> 69 ms/step), so this branch is only taken with
-            # use_pallas.
-            from pose3d_tpu.ops.pallas_attention import (
-                packed_flat_attention,
-                seq_attention,
-            )
-
-            qkv_flat = qkv_dense(x.reshape(n * l, self.dim))
-            if l <= 64:
-                out = packed_flat_attention(qkv_flat, l, self.heads)
-            else:
-                out = seq_attention(
-                    qkv_flat.reshape(n, l, 3 * self.dim), self.heads
-                ).reshape(n * l, self.dim)
-            return proj_dense(out).reshape(n, l, self.dim)
-        qkv = qkv_dense(x)
-        q, k, v = jnp.split(qkv, 3, axis=-1)
-
-        def split_heads(t):
-            return t.reshape(n, l, self.heads, d).transpose(0, 2, 1, 3)
-
-        q, k, v = split_heads(q), split_heads(k), split_heads(v)
-        if self.flash and jax.default_backend() == "tpu":
-            from jax.experimental.pallas.ops.tpu.flash_attention import (
-                flash_attention,
-            )
-
-            out = flash_attention(q, k, v, sm_scale=d ** -0.5)
-        else:
-            attn = jnp.einsum("nhld,nhmd->nhlm", q, k) * (d ** -0.5)
-            attn = nn.softmax(
-                attn.astype(jnp.float32), axis=-1).astype(self.dtype)
-            out = jnp.einsum("nhlm,nhmd->nhld", attn, v)
-        out = out.transpose(0, 2, 1, 3).reshape(n, l, self.dim)
-        return proj_dense(out)
+from pose3d_tpu.models import layers as L
 
 
-class _MLP(nn.Module):
-    dim: int
-    ratio: int = 4
-    dtype: jnp.dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x):
-        y = nn.Dense(self.ratio * self.dim, dtype=self.dtype)(x)
-        y = nn.gelu(y, approximate=False)
-        return nn.Dense(self.dim, dtype=self.dtype)(y)
+def _mhsa_init(key, dim: int) -> dict:
+    k1, k2 = jax.random.split(key)
+    return {"Dense_0": L.dense_init(k1, dim, 3 * dim),
+            "Dense_1": L.dense_init(k2, dim, dim)}
 
 
-class SpatioTemporalBlock(nn.Module):
-    """One ST block: joint attention within frames, then time attention per
-    joint; pre-LN residual throughout. ``flash`` applies to the temporal
-    attention only (17-token spatial attention is too small to tile)."""
-
-    dim: int
-    heads: int
-    flash: bool = False
-    use_pallas: bool = False
-    dtype: jnp.dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x):  # (B, T, J, dim)
-        b, t, j, c = x.shape
-        # spatial: tokens = joints, batch = B*T
-        xs = x.reshape(b * t, j, c)
-        xs = xs + _MHSA(self.dim, self.heads, use_pallas=self.use_pallas,
-                        dtype=self.dtype)(
-            nn.LayerNorm(epsilon=1e-5, dtype=self.dtype)(xs)
-        )
-        xs = xs + _MLP(self.dim, dtype=self.dtype)(
-            nn.LayerNorm(epsilon=1e-5, dtype=self.dtype)(xs)
-        )
-        x = xs.reshape(b, t, j, c)
-        # temporal: tokens = frames, batch = B*J
-        xt = x.transpose(0, 2, 1, 3).reshape(b * j, t, c)
-        xt = xt + _MHSA(self.dim, self.heads, flash=self.flash,
-                        use_pallas=self.use_pallas, dtype=self.dtype)(
-            nn.LayerNorm(epsilon=1e-5, dtype=self.dtype)(xt)
-        )
-        xt = xt + _MLP(self.dim, dtype=self.dtype)(
-            nn.LayerNorm(epsilon=1e-5, dtype=self.dtype)(xt)
-        )
-        return xt.reshape(b, j, t, c).transpose(0, 2, 1, 3)
+def _mlp_init(key, dim: int, ratio: int = 4) -> dict:
+    k1, k2 = jax.random.split(key)
+    return {"Dense_0": L.dense_init(k1, dim, ratio * dim),
+            "Dense_1": L.dense_init(k2, ratio * dim, dim)}
 
 
-class TemporalLifter(nn.Module):
+def _block_init(key, dim: int) -> dict:
+    k = jax.random.split(key, 4)
+    return {
+        "_MHSA_0": _mhsa_init(k[0], dim), "LayerNorm_0": L.norm_init(dim),
+        "_MLP_0": _mlp_init(k[1], dim), "LayerNorm_1": L.norm_init(dim),
+        "_MHSA_1": _mhsa_init(k[2], dim), "LayerNorm_2": L.norm_init(dim),
+        "_MLP_1": _mlp_init(k[3], dim), "LayerNorm_3": L.norm_init(dim),
+    }
+
+
+def _sub_block(p, x, mhsa, mlp, ln_a, ln_m, heads, dtype):
+    """Pre-LN attention + MLP over the middle axis of (N, L, C)."""
+    a = p[mhsa]
+    y = L.dense(a["Dense_0"], L.layer_norm(p[ln_a], x, dtype), dtype)
+    x = x + L.dense(a["Dense_1"], L.attention(y, heads, dtype), dtype)
+    m = p[mlp]
+    y = L.dense(m["Dense_0"], L.layer_norm(p[ln_m], x, dtype), dtype)
+    return x + L.dense(m["Dense_1"], jax.nn.gelu(y, approximate=False), dtype)
+
+
+def spatio_temporal_block(p, x, heads: int, dtype):
+    """One ST block on (B, T, J, C): joint attention within frames
+    (tokens = joints, batch = B*T), then time attention per joint
+    (tokens = frames, batch = B*J); pre-LN residual throughout."""
+    b, t, j, c = x.shape
+    xs = _sub_block(p, x.reshape(b * t, j, c), "_MHSA_0", "_MLP_0",
+                    "LayerNorm_0", "LayerNorm_1", heads, dtype)
+    xt = xs.reshape(b, t, j, c).transpose(0, 2, 1, 3).reshape(b * j, t, c)
+    xt = _sub_block(p, xt, "_MHSA_1", "_MLP_1", "LayerNorm_2", "LayerNorm_3",
+                    heads, dtype)
+    return xt.reshape(b, j, t, c).transpose(0, 2, 1, 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class TemporalLifter(L.Model):
     """(B, T, 17, 2) -> (B, T, 17, 3) sequence lifting."""
 
     n_joints: int = 17
@@ -150,15 +89,13 @@ class TemporalLifter(nn.Module):
     n_blocks: int = 5
     heads: int = 8
     remat: bool = False
-    flash: bool = False  # Pallas flash attention for the temporal branch
-    use_pallas: bool = False  # packed-attention kernels (both branches)
     # Sequence parallelism (long clips): a PartitionSpec-style tuple for the
     # (B, T, J, C) activations, e.g. ("data", "seq", None, None). Applied as
     # GSPMD sharding constraints after the embedding and between blocks; XLA
     # inserts the all-gathers the temporal attention needs. Requires an
     # ambient mesh (jax.sharding.set_mesh). None = no constraint.
     activation_spec: tuple | None = None
-    dtype: jnp.dtype = jnp.float32
+    dtype: Any = jnp.float32
 
     def _constrain(self, x):
         if self.activation_spec is None:
@@ -167,35 +104,41 @@ class TemporalLifter(nn.Module):
 
         return jax.lax.with_sharding_constraint(x, P(*self.activation_spec))
 
-    @nn.compact
-    def __call__(self, x, *, train: bool = False):
-        del train
-        b, t, j, _ = x.shape
+    def _init(self, key, x):
+        k = jax.random.split(key, self.n_blocks + 5)
+        h = self.hidden
+        params = {
+            "Dense_0": L.dense_init(k[0], x.shape[-1], h),
+            "spatial_pe": 0.02 * jax.random.normal(
+                k[1], (1, 1, self.n_joints, h), jnp.float32),
+            "temporal_pe": 0.02 * jax.random.normal(
+                k[2], (1, self.clip_len, 1, h), jnp.float32),
+            "LayerNorm_0": L.norm_init(h),
+            "Dense_1": L.dense_init(k[3], h, h // 2),
+            "Dense_2": L.dense_init(k[4], h // 2, self.out_dim),
+        }
+        for i in range(self.n_blocks):
+            params[f"SpatioTemporalBlock_{i}"] = _block_init(k[5 + i], h)
+        return {"params": params}
+
+    def _forward(self, variables, x, train, rng):
+        del train, rng
+        p, dt = variables["params"], self.dtype
+        t = x.shape[1]
         assert t <= self.clip_len, (t, self.clip_len)
-        x = nn.Dense(self.hidden, dtype=self.dtype)(x.astype(self.dtype))
-        spatial_pe = self.param(
-            "spatial_pe", nn.initializers.normal(0.02),
-            (1, 1, self.n_joints, self.hidden),
-        )
-        temporal_pe = self.param(
-            "temporal_pe", nn.initializers.normal(0.02),
-            (1, self.clip_len, 1, self.hidden),
-        )
-        x = x + spatial_pe.astype(self.dtype) + temporal_pe[:, :t].astype(self.dtype)
+        x = L.dense(p["Dense_0"], x, dt)
+        x = (x + p["spatial_pe"].astype(dt)
+             + p["temporal_pe"][:, :t].astype(dt))
         x = self._constrain(x)
-        block_cls = (
-            nn.remat(SpatioTemporalBlock) if self.remat else SpatioTemporalBlock
-        )
-        for _ in range(self.n_blocks):
+        block = spatio_temporal_block
+        if self.remat:
+            block = jax.checkpoint(block, static_argnums=(2, 3))
+        for i in range(self.n_blocks):
             x = self._constrain(
-                block_cls(self.hidden, self.heads, flash=self.flash,
-                          use_pallas=self.use_pallas,
-                          dtype=self.dtype)(x)
-            )
-        x = nn.LayerNorm(epsilon=1e-5, dtype=self.dtype)(x)
-        y = nn.Dense(self.hidden // 2, dtype=self.dtype)(x)
-        y = nn.relu(y)
-        return nn.Dense(self.out_dim, dtype=self.dtype)(y).astype(jnp.float32)
+                block(p[f"SpatioTemporalBlock_{i}"], x, self.heads, dt))
+        x = L.layer_norm(p["LayerNorm_0"], x, dt)
+        y = jax.nn.relu(L.dense(p["Dense_1"], x, dt))
+        return L.dense(p["Dense_2"], y, dt).astype(jnp.float32), None
 
 
 def clip_starts(n: int, clip_len: int, stride: int) -> list:

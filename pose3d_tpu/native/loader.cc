@@ -3,7 +3,7 @@
 //
 // The reference feeds images through forked python DataLoader workers doing
 // cv2.imread + resize per item (H36_dataset.py:78-131, train_1.py:51-52).
-// This is the TPU-native replacement for that host pipeline: a C++ worker
+// This is the native replacement for that host pipeline: a C++ worker
 // pool decodes JPEGs straight into the caller's pinned batch buffer in the
 // reference's layout ((N, S, S, 3) float32 in [0,1), the resize-S + /256
 // convention of H36_dataset.py:129-131), with no Python in the decode path.

@@ -4,7 +4,7 @@
 // The reference's phase-2 ETL shells out to ffmpeg to dump %04d.jpg frames
 // (run.py:31-57) and phase-4's Custom_video_dataset re-reads those via
 // per-item python cv2 calls (Custom_Video_dataset.py:44-73). This is the
-// TPU-native replacement for both: libavcodec (through OpenCV's C++
+// Native replacement for both: libavcodec (through OpenCV's C++
 // VideoCapture, which runs the codec's own thread pool) decodes straight
 // into the caller's batch buffer — centre-crop square, resize, RGB — as
 // uint8 (normalize-on-device path, 4x less host->HBM traffic) or float32
@@ -59,9 +59,8 @@ void CropResizeRgb(const cv::Mat& bgr, int size, cv::Mat* rgb_out) {
 // the batch buffer — is not. This pool overlaps that tail with the
 // decode: the reader thread clones each kept frame and hands it to a
 // worker with its PREASSIGNED output slot, so the result is bit-identical
-// to the sequential loop regardless of scheduling. Measured on the bench
-// video (512 frames 640x480 mp4 -> 256x256 u8): 4.8s -> bounded by the
-// codec alone (ROUND3_NOTES).
+// to the sequential loop regardless of scheduling; the codec alone then
+// bounds the decode.
 class PostprocPool {
  public:
   // convert_f32: write float32/256.0 instead of uint8

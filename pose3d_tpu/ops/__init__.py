@@ -1,16 +1,11 @@
-"""Fused compute ops (XLA formulations + Pallas kernels for the hot paths)."""
+"""Compute ops: heatmap rendering and soft-argmax decoding in plain XLA."""
 
 from pose3d_tpu.ops.heatmap import (  # noqa: F401
     gaussian_heatmap_3d,
     heatmap_targets,
     soft_argmax_2d,
     soft_argmax_3d,
+    soft_argmax_3d_nhwc,
     uvw_to_xyz,
     xyz_to_uvw,
 )
-from pose3d_tpu.ops.pallas_attention import (  # noqa: F401
-    packed_flat_attention,
-    seq_attention,
-)
-from pose3d_tpu.ops.pallas_lifter import lifter_forward_fused  # noqa: F401
-from pose3d_tpu.ops.pallas_stblock import temporal_forward_fused  # noqa: F401

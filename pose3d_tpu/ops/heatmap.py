@@ -14,14 +14,13 @@ Reference contracts:
 - 2D soft-argmax (phase5_loop/Model_2d.py:96-134): softmax over 64^2,
   expectations normalized to [0,1] (no centring, no scale).
 
-TPU-first design:
+Design:
 - synthesis is separable: three windowed 1-D Gaussians combined by outer
   product (einsum) — vmappable over (B, J), no scatter, no dynamic shapes;
 - decode computes the three marginal expectations directly from the softmax
   probabilities in one fused XLA computation; the (B,J,64^3) tensor is
   produced once and consumed by three reductions XLA fuses into a single
-  pass (a Pallas kernel for the fully-fused logits->coords path lives in
-  pose3d_tpu.ops.pallas_softargmax).
+  pass.
 """
 
 from __future__ import annotations
@@ -176,8 +175,8 @@ def soft_argmax_3d_nhwc(logits_nhwc, num_joints: int = 17, depth: int = GRID,
                         z_scale: float = 2.5, xy_scale: float = 2.0):
     """Volumetric soft-argmax directly on the conv head's NHWC output
     (B, H, W, J*depth) — same math as :func:`soft_argmax_3d` but without the
-    1-GB-scale NCHW transpose (and its gradient) the layout change costs on
-    TPU. The channel dim splits into (J, depth) for free.
+    1-GB-scale NCHW transpose (and its gradient) the layout change costs.
+    The channel dim splits into (J, depth) for free.
 
     Returns coords (B, J*3) with the reference scaling.
     """

@@ -1,11 +1,11 @@
 """Device mesh + sharding strategy.
 
 The reference is single-process / single-GPU with no parallelism of any kind
-(SURVEY.md section 2.7); this module is the TPU-native replacement: a
-``jax.sharding.Mesh`` over all local chips with named axes
+(SURVEY.md section 2.7); this module is the replacement: a
+``jax.sharding.Mesh`` over all local devices with named axes
 
-- ``data``  — batch (data-parallel) axis; gradients all-reduce over ICI via
-  the psum XLA inserts for us under jit,
+- ``data``  — batch (data-parallel) axis; gradients all-reduce over NVLink
+  via the psum XLA inserts for us under jit (NCCL on the GPU),
 - ``model`` — tensor-parallel axis for the wide (1024x1024) Martinez layers
   and attention heads when scaling model size.
 

@@ -12,7 +12,7 @@ Adapters:
   used when openpifpaf is installed (not in this image — kept behind the
   interface so CI runs without it).
 - :class:`PoseNet2DDetector` — native in-framework detector: the phase5
-  ``PoseNet2D`` model batched on TPU (detections in H36M order directly).
+  ``PoseNet2D`` model batched on the device (detections in H36M order directly).
 - :class:`MockDetector` — deterministic synthetic COCO detections for tests
   and fixtures.
 
@@ -88,7 +88,7 @@ class MockDetector(Detector2D):
 
 
 class PoseNet2DDetector(Detector2D):
-    """Native TPU detector: batched PoseNet2D inference (H36M joint order).
+    """Native detector: batched PoseNet2D inference (H36M joint order).
 
     Output keypoints are emitted in COCO-compatible JSON but already H36M-
     ordered; callers should pass ``already_h36m=True`` downstream.

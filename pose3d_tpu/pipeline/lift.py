@@ -19,49 +19,26 @@ from pose3d_tpu.pipeline.keypoints import load_video_json, save_mb_npy
 
 
 @functools.cache
-def _fused_infer():
-    """Module-level jit of the fused serving forward. Defining the jit
-    inside lift_sequence made EVERY call a fresh python callable — jax's
-    compile cache keys on callable identity, so each video recompiled the
-    whole 10-kernel forward (~7s, measured as the dominant stage of the
-    e2e bench, ROUND3_NOTES)."""
-    import jax
-
-    from pose3d_tpu.ops.pallas_stblock import temporal_forward_fused
-
-    return jax.jit(temporal_forward_fused,
-                   static_argnames=("n_blocks", "clip_len"))
-
-
-@functools.cache
-def _xla_infer():
+def _infer():
+    """One module-level jit: defining it inside lift_sequence would make
+    every call a fresh callable and recompile the forward per video."""
     import jax
 
     def infer(model, p, x):
         return model.apply({"params": p}, x, train=False)
 
-    return jax.jit(infer, static_argnums=0)  # flax modules hash by config
+    return jax.jit(infer, static_argnums=0)  # models hash by config
 
 
 def lift_sequence(params, model: TemporalLifter, kp2d_px: np.ndarray,
-                  image_size: float = 1000.0, stride: int | None = None,
-                  use_pallas: bool | None = None):
+                  image_size: float = 1000.0, stride: int | None = None):
     """(T,17,2) pixel keypoints -> (T,17,3) lifted sequence.
 
     Clips of ``model.clip_len`` frames with ``stride`` overlap (default:
     clip_len//2); overlapping frame predictions are averaged; every frame
-    is covered (``clip_starts`` anchors a final window at the tail).
-    ``use_pallas``: None (default) auto-enables the Pallas serving path on
-    TPU — the fully-fused forward (2.03x the XLA apply, ROUND2_NOTES) for
-    the default architecture, the packed-attention kernels otherwise —
-    but ONLY for a bfloat16 model: the fused kernels compute in bf16, and
-    an f32 model must keep f32 numerics unless the caller explicitly opts
-    in (outputs shift ~1e-2 relative otherwise, which can move MPJPE
-    evaluations run through this path). Forcing True is honored only on a
-    TPU backend (the kernels do not lower elsewhere); False always forces
-    plain XLA.
+    is covered (``clip_starts`` anchors a final window at the tail). The
+    clips run in ``model.dtype``.
     """
-    import jax
     import jax.numpy as jnp
 
     from pose3d_tpu.models.temporal import clip_starts
@@ -74,27 +51,7 @@ def lift_sequence(params, model: TemporalLifter, kp2d_px: np.ndarray,
     kp = (kp2d_px / image_size).astype(np.float32)
 
     clips = make_clips(kp, clip_len, stride)
-
-    if use_pallas is None:
-        use_pallas = (jax.default_backend() == "tpu"
-                      and model.dtype == jnp.bfloat16)
-    use_pallas = use_pallas and jax.default_backend() == "tpu"
-
-    if (use_pallas and clip_len == model.clip_len and model.hidden == 256
-            and model.heads == 8 and model.n_joints == 17):
-        # fully-fused serving forward: spatial + temporal sub-block
-        # megakernels — 2.6x the XLA apply at B=16 (ROUND3_NOTES);
-        # params identical, only the compute path moves
-        out = np.asarray(_fused_infer()(
-            params, jnp.asarray(clips), n_blocks=model.n_blocks,
-            clip_len=model.clip_len))  # (C, L, 17, 3)
-    else:
-        if use_pallas != model.use_pallas:
-            import dataclasses
-
-            model = dataclasses.replace(model, use_pallas=use_pallas)
-
-        out = np.asarray(_xla_infer()(model, params, jnp.asarray(clips)))
+    out = np.asarray(_infer()(model, params, jnp.asarray(clips)))
 
     acc = np.zeros((t_total, 17, 3), np.float32)
     cnt = np.zeros((t_total, 1, 1), np.float32)

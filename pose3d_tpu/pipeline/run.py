@@ -13,16 +13,6 @@ Usage:
 
 from __future__ import annotations
 
-# --cpu must take effect BEFORE any import that can initialize jax's
-# backends (flax/orbax touch them at import): an unreachable TPU plugin
-# otherwise hangs the process before argument parsing even runs
-import sys
-
-if "--cpu" in sys.argv:
-    import jax as _jax
-
-    _jax.config.update("jax_platforms", "cpu")
-
 import argparse
 import pathlib
 
@@ -74,8 +64,6 @@ def process_video(video: str, root, detector, lifter=None,
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--cpu", action="store_true",
-                   help="force the CPU backend (handled at import)")
     p.add_argument("--video", required=True)
     p.add_argument("--root", default="./videos")
     p.add_argument("--detector", default="mock",
@@ -136,9 +124,7 @@ def main(argv=None):
         from pose3d_tpu.train import checkpoint as ckpt
         from pose3d_tpu.train.state import create_train_state
 
-        # serving path: bf16 compute opts the lifter into the fused Pallas
-        # forward on TPU (lift_sequence gates the kernels on model.dtype —
-        # an f32 model keeps f32 XLA numerics)
+        # serving path: bf16 compute
         lifter = TemporalLifter(dtype=jnp.bfloat16)
         state = create_train_state(
             lifter, jax.random.key(0),

@@ -4,7 +4,7 @@ Reference behavior (phase2_opp_mb/run.py:113-131 ``run_ffmpeg``): one ffmpeg
 subprocess per video extracting fps-resampled frames to ``ffmpeg_frames/
 <video>/%04d.jpg`` plus a reduced-fps mp4.
 
-TPU-native redesign: decode in-process through cv2's native codecs (no
+Redesign: decode in-process through cv2's native codecs (no
 per-video shell-out; this image has no ffmpeg binary) with the same output
 layout. Frames can stream straight to device without touching JPEG disk
 round-trips via :func:`iter_frames`.
@@ -100,8 +100,7 @@ def load_frames(frames_dir, size: int | None = None, dtype=np.float32):
     resized. dtype float32 (default): values in [0,1) per the resize-256 +
     /256 convention of H36_dataset.py:129-131. dtype uint8: raw pixels —
     callers normalize on device (``x/256`` of uint8 is exact in f32, and
-    the host->device transfer is 4x smaller; the transfer dominates the
-    detect stage over the narrow-link chip here, ROUND3_NOTES)."""
+    the host->device transfer is 4x smaller)."""
     files = sorted(pathlib.Path(frames_dir).glob("*.jpg"))
     frames = []
     for f in files:

@@ -1,20 +1,18 @@
 """Serving: bucketed, precompiled lifting inference.
 
 Production-path counterpart to the training CLIs (the reference has no
-serving story at all — inference is a by-product of its train loops). Design
-for TPU serving:
+serving story at all — inference is a by-product of its train loops):
 
 - fixed batch-size buckets (powers of two up to ``max_batch``) so every
   request shape hits a precompiled executable — no retrace, no dynamic
   shapes;
 - requests are padded up to the bucket and the padding sliced off after;
-- the Martinez lifter uses the fused VMEM-resident Pallas block
-  (ops/pallas_martinez) with folded BN at inference;
-- all compute in bfloat16, outputs float32;
-- optional multi-chip serving: pass ``mesh=`` to shard each bucket's
-  batch over the mesh's data axis via ``shard_map`` (each chip runs the
-  same single-chip program — fused Pallas kernels included — on its
-  shard; no cross-chip communication exists in a lifter forward).
+- the model's own ``apply`` runs in its compute dtype (bfloat16 for
+  throughput), outputs float32;
+- optional multi-device serving: pass ``mesh=`` to shard each bucket's
+  batch over the mesh's data axis via ``shard_map`` (each device runs the
+  same single-device program on its shard; no cross-device communication
+  exists in a lifter forward).
 """
 
 from __future__ import annotations
@@ -22,27 +20,11 @@ from __future__ import annotations
 import numpy as np
 
 
-def fused_vit_buckets_ok(buckets, n_shards: int = 1) -> bool:
-    """True iff every per-shard bucket tiles the fused ViT kernel's frame
-    cell (``pallas_lifter.ROWS // N_JOINTS`` frames per pallas grid cell) —
-    ``lifter_forward_fused`` raises ValueError on any other batch size, so
-    the serving gate must route such configs to the XLA apply instead
-    (ADVICE round 4: the gate tracks the kernel constant, tested in
-    tests/test_serving.py::test_fused_gate_matches_kernel_contract)."""
-    from pose3d_tpu.ops import pallas_lifter as _pk
-
-    frames_per_cell = _pk.ROWS // _pk.N_JOINTS
-    return all((b // n_shards) % frames_per_cell == 0 for b in buckets)
-
-
 class LifterService:
     """Wraps a trained lifter for padded, bucketed batch inference."""
 
     def __init__(self, model, params, batch_stats=None, *,
-                 max_batch: int = 8192, min_bucket: int = 64,
-                 use_fused_martinez: bool = True,
-                 use_fused_vit: bool = True,
-                 mesh=None):
+                 max_batch: int = 8192, min_bucket: int = 64, mesh=None):
         import jax
         import jax.numpy as jnp
 
@@ -51,7 +33,6 @@ class LifterService:
         self.params = params
         self.batch_stats = batch_stats or {}
         self.mesh = mesh
-        n_shards = 1
         if mesh is not None:
             from pose3d_tpu.parallel.mesh import DATA_AXIS
 
@@ -66,80 +47,20 @@ class LifterService:
             self.buckets.append(b)
             b *= 2
 
-        fused = None
-        from pose3d_tpu.models.lifters import (
-            JointTransformerLifter,
-            MartinezLifter,
-        )
+        variables = {"params": params}
+        if self.batch_stats:
+            variables["batch_stats"] = self.batch_stats
 
-        # the fused kernels compute in bf16: auto-route ONLY bf16 models so
-        # an f32 model keeps f32 numerics (ADVICE round 2; MPJPE evals can
-        # shift ~1e-2 relative otherwise)
-        if (use_fused_martinez and isinstance(model, MartinezLifter)
-                and model.dtype == jnp.bfloat16
-                and self.batch_stats and jax.default_backend() == "tpu"):
-            from pose3d_tpu.ops.pallas_martinez import (
-                build_fused_params,
-                martinez_infer_fused,
-            )
-
-            fused_params = build_fused_params(params, self.batch_stats)
-
-            def run(kp2d):
-                return martinez_infer_fused(fused_params, kp2d)
-
-            fused = run
-
-        if (use_fused_vit and isinstance(model, JointTransformerLifter)
-                and model.dtype == jnp.bfloat16
-                # the kernel hardcodes the default architecture — every
-                # field it bakes in must match, notably heads (the qkv/proj
-                # param SHAPES are head-count-independent, so a mismatch
-                # would be silently wrong, not a shape error)
-                and model.n_joints == 17 and model.in_dim == 2
-                and model.out_dim == 3 and model.hidden == 256
-                and model.n_blocks == 2 and model.heads == 4
-                and not model.class_token
-                # every per-shard bucket must tile the kernel's frame cell
-                # or lifter_forward_fused raises at warmup
-                and fused_vit_buckets_ok(self.buckets, n_shards)
-                and jax.default_backend() == "tpu"):
-            # whole-trunk VMEM megakernel: 2.5x the XLA apply at B=8192
-            # (ROUND2_NOTES)
-            from pose3d_tpu.models.lifters import (
-                sinusoidal_positional_embeddings,
-            )
-            from pose3d_tpu.ops.pallas_lifter import lifter_forward_fused
-
-            pe = sinusoidal_positional_embeddings(17, 256)
-
-            def run_vit(kp2d):
-                return lifter_forward_fused(params, kp2d, pe=pe)
-
-            fused = run_vit
-
-        if fused is not None:
-            base = fused
-        else:
-            variables = {"params": params}
-            if self.batch_stats:
-                variables["batch_stats"] = self.batch_stats
-
-            def base(kp2d):
-                return model.apply(variables, kp2d, train=False)
+        def base(kp2d):
+            return model.apply(variables, kp2d, train=False)
 
         if mesh is not None:
-            # DP serving: each chip runs the identical single-chip program
-            # (Pallas kernels included) on its batch shard — shard_map
-            # keeps the kernels out of GSPMD's way; there is no cross-chip
-            # communication in a lifter forward
             from jax.sharding import PartitionSpec as P
 
             from pose3d_tpu.parallel.mesh import DATA_AXIS
 
-            base = jax.shard_map(
-                base, mesh=mesh, in_specs=P(DATA_AXIS),
-                out_specs=P(DATA_AXIS), check_vma=False)
+            base = jax.shard_map(base, mesh=mesh, in_specs=P(DATA_AXIS),
+                                 out_specs=P(DATA_AXIS))
 
         self._fn = jax.jit(base)
 

@@ -1,7 +1,7 @@
 """Observability and failure-detection hooks (SURVEY.md section 5).
 
 The reference has no tracing/profiling/sanitizing at all (only tqdm bars and
-wall-clock prints). The TPU-native equivalents:
+wall-clock prints). The equivalents here:
 
 - :func:`profile` — context manager wrapping ``jax.profiler`` trace capture
   (view with tensorboard / xprof). Enable per-run via ``POSE3D_PROFILE=dir``.

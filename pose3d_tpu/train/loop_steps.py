@@ -8,7 +8,7 @@ train_5.py:81), an optional FROZEN ViT projector — combined through
 flip-consistency (horizontal image flip, all predictions re-estimated and
 averaged through the flip, train_5.py:153-168).
 
-TPU redesign:
+Redesign:
 - freezing is structural: frozen params are plain (non-optimizer) leaves of
   the step's state — no lr-0 optimizer needed (optax.set_to_zero semantics
   by construction);
@@ -22,9 +22,9 @@ TPU redesign:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Optional
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
@@ -34,12 +34,16 @@ from pose3d_tpu.train.schedule import plateau_update
 from pose3d_tpu.train.state import TrainState
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class LoopState:
     net2d: TrainState
     net3d: TrainState
     lifter_params: Any = None
     projector_params: Any = None
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
 
 
 def make_loop_train_step(

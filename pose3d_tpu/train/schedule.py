@@ -14,16 +14,22 @@ torch semantics reproduced exactly:
 
 from __future__ import annotations
 
-import flax.struct
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class PlateauState:
     lr: jnp.ndarray        # scalar f32
     best: jnp.ndarray      # scalar f32
     num_bad: jnp.ndarray   # scalar i32
     cooldown: jnp.ndarray  # scalar i32
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
 
 
 def plateau_init(lr: float) -> PlateauState:

@@ -1,9 +1,9 @@
 """Jitted train/eval steps for the 2D->3D lifting task.
 
-TPU-native replacement for the reference's per-batch python loop body
+Replacement for the reference's per-batch python loop body
 (phase1_lifting/train_1.py:73-100): one fused XLA program per step doing
 forward, loss, backward, optimizer update, and metric accumulation, with the
-train state donated (no HBM copy per step).
+train state donated (no device-memory copy per step).
 
 Metric convention: each step returns the per-joint MPJPE sums of the batch
 (reference ``loss_MPJPE``); the epoch loop accumulates and finalizes with
@@ -77,16 +77,14 @@ def make_lifter_train_step(loss: str = "mse", donate: bool = True):
 
 
 def make_dp_lifter_train_step(mesh, loss: str = "mse", donate: bool = True):
-    """Data-parallel lifter train step via ``shard_map`` — the mesh path
-    for apply_fns built from Pallas kernels.
+    """Data-parallel lifter train step via ``shard_map``.
 
-    The GSPMD jit path (annotate shardings, let XLA partition) cannot
-    split a ``pallas_call``: fused-kernel train steps
-    (ops/pallas_stblock_train.make_fused_train_apply) would replicate or
-    fail under it. Here each shard runs the identical single-chip program
-    on its batch slice; loss and grads are ``pmean``ed and per-joint MPJPE
-    sums ``psum``ed over the data axis — numerically the global-batch
-    step, since MSE/L1 means over equal shards compose exactly.
+    The alternative to the GSPMD jit path (``make_lifter_train_step`` with
+    sharded inputs, where XLA partitions the step): each shard runs the
+    identical single-device program on its batch slice; loss and grads are
+    ``pmean``ed and per-joint MPJPE sums ``psum``ed over the data axis —
+    numerically the global-batch step, since MSE/L1 means over equal shards
+    compose exactly.
 
     Stats-free models only (the temporal lifter has no BatchNorm); BN
     models keep the GSPMD path where batch stats are globally reduced
@@ -127,8 +125,8 @@ def make_dp_lifter_train_step(mesh, loss: str = "mse", donate: bool = True):
             per_shard, mesh=mesh,
             in_specs=(P(), P(DATA_AXIS), P(DATA_AXIS), P()),
             out_specs=(P(), P(), P()),
-            # pallas_call out_shapes carry no varying-manner annotation;
-            # replication of the outputs is guaranteed by the pmean/psum
+            # the explicit pmean above reduces the grads; vma tracking would
+            # also psum the gradient of the replicated params, doubling it up
             check_vma=False,
         )(state.params, y1, y2, rng)
         state = state.with_lr(state.plateau.lr)

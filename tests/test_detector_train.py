@@ -80,9 +80,8 @@ class TestDetectorTraining:
         assert np.isfinite(trained_px)
         assert trained_px < init_px, (trained_px, init_px)
         # quantified bound: 16 CPU steps at this config demonstrated
-        # 8.6 px eval error (and 600 chip steps reach 2.9 px @256,
-        # experiments/campaign_r5/train_detector_bench.log) — 16 px is
-        # ~2x margin over the demonstrated value, 2x tighter than init
+        # 8.6 px eval error — 16 px is ~2x margin over the demonstrated
+        # value, 2x tighter than init
         assert trained_px < SIZE / 4, trained_px
         # checkpoint written with the metadata the pipeline CLI reads
         from pose3d_tpu.train import checkpoint as ckpt
@@ -123,7 +122,5 @@ class TestRealDetectionPipeline:
         assert np.isfinite(err_px)
         # demonstrated bound: this 16-step config reaches ~8.6 px eval
         # error on clean frames; SIZE/4 = 16 px leaves ~2x margin for the
-        # mp4 encode/decode round-trip the video path adds (the chip
-        # record after 600 steps is 2.88 px @256 —
-        # experiments/campaign_r5/train_detector_bench.log)
+        # mp4 encode/decode round-trip the video path adds
         assert err_px < SIZE / 4, err_px

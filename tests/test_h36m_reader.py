@@ -161,7 +161,7 @@ REAL_H36M = pathlib.Path(os.environ.get("H36M_DATA_DIR", "/root/data/h3.6"))
 )
 class TestRealH36M:
     """Integration on the genuine export: read_data -> preprocess ->
-    1 epoch -> MPJPE (the VERDICT r3 readiness clause). Run with
+    1 epoch -> MPJPE. Run with
     H36M_DATA_DIR=/path/to/h3.6 pytest tests/test_h36m_reader.py -k Real."""
 
     def test_one_epoch_mpjpe_on_real_slice(self, tmp_path):

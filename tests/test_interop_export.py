@@ -86,7 +86,7 @@ def test_projection_roundtrip(rng):
 def test_posenet3d_roundtrip(rng, arch):
     from pose3d_tpu.models.heads import PoseNet3D
 
-    m = PoseNet3D(architecture=arch, return_heatmap=False, use_pallas=False)
+    m = PoseNet3D(architecture=arch, return_heatmap=False)
     v = _randomize(
         jax.jit(lambda r, x: m.init(r, x, train=False))(
             jax.random.key(0), jnp.zeros((1, 64, 64, 3))), rng)

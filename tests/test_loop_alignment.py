@@ -1,5 +1,4 @@
-"""Pin the loop-trainer frame<->kp2d<->kp3d index alignment
-(VERDICT round 2, item 5-weak / item 7).
+"""Pin the loop-trainer frame<->kp2d<->kp3d index alignment.
 
 cli/train_loop.py loads frames+kp3d through ``load_image_split`` (which
 subsamples inside ``h36m.preprocess``) and the 2D targets through a SECOND

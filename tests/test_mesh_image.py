@@ -57,7 +57,7 @@ class TestImageModelsUnderMesh:
         kp3d = (rng.random((B, 17, 3), np.float32) - 0.5) * 1.5
 
         model = PoseNet3D(architecture="resnet18", depth=8,
-                          return_heatmap=False, use_pallas=False)
+                          return_heatmap=False)
         variables = model.init(
             {"params": jax.random.key(0)}, jnp.zeros((B, HW, HW, 3)),
             train=True,
@@ -105,15 +105,13 @@ class TestImageModelsUnderMesh:
         assert abs(shard_mean - frames.mean()) > 0.1
 
 class TestDPDirectShardMap:
-    """make_dp_direct_train_step: the shard_map DP route for the fused
-    conv+decode epilogue (VERDICT r4 item 5 — GSPMD cannot partition a
-    pallas_call, so PoseNet3D(fuse_final_conv=True) needs this step to
-    scale). With every shard fed the IDENTICAL batch, the step's local-BN
+    """make_dp_direct_train_step: the shard_map DP route for the direct
+    model. With every shard fed the IDENTICAL batch, the step's local-BN
     semantics coincide with global BN, so the DP step must match the
     single-device step on one shard's batch EXACTLY: pmean over identical
     values is the identity, psum is x8."""
 
-    def _parity(self, fuse, rng, image=64, b_shard=2):
+    def _parity(self, rng, image=64, b_shard=2):
         import jax.numpy as jnp
 
         from pose3d_tpu.models.heads import PoseNet3D
@@ -123,8 +121,7 @@ class TestDPDirectShardMap:
         )
 
         mesh = make_mesh(n_data=8)
-        model = PoseNet3D(architecture="resnet18", return_heatmap=False,
-                          use_pallas=False, fuse_final_conv=fuse)
+        model = PoseNet3D(architecture="resnet18", return_heatmap=False)
         shard_frames = rng.random((b_shard, image, image, 3), np.float32)
         shard_kp = (rng.random((b_shard, 17, 3), np.float32) - 0.5) * 1.5
         frames = np.tile(shard_frames, (8, 1, 1, 1))
@@ -151,15 +148,8 @@ class TestDPDirectShardMap:
                            atol=1e-5)
 
     def test_plumbing_matches_single_device(self, devices, rng):
-        """XLA-epilogue model: fast check of the shard_map wiring."""
-        self._parity(False, rng, image=32)
-
-    @pytest.mark.slow
-    def test_fused_epilogue_matches_single_device(self, devices, rng):
-        """fuse_final_conv=True: the pallas conv+decode kernels (interpret
-        mode on CPU) run inside the shard_map step — the configuration the
-        GSPMD path cannot express."""
-        self._parity(True, rng, image=64)
+        """Fast check of the shard_map wiring."""
+        self._parity(rng, image=32)
 
     @pytest.mark.slow
     def test_skewed_shards_local_bn_contract(self, devices, rng):
@@ -176,8 +166,7 @@ class TestDPDirectShardMap:
         )
 
         mesh = make_mesh(n_data=8)
-        model = PoseNet3D(architecture="resnet18", return_heatmap=False,
-                          use_pallas=False)
+        model = PoseNet3D(architecture="resnet18", return_heatmap=False)
         frames = _skewed_frames(rng)
         kp3d = (rng.random((B, 17, 3), np.float32) - 0.5) * 1.5
         state = create_train_state(

@@ -1,5 +1,4 @@
-"""The phase-5 consistency loop under the device mesh (VERDICT round 2,
-item 2 — the one model family that had no mesh-correctness evidence).
+"""The phase-5 consistency loop under the device mesh.
 
 This is the most failure-prone sharding case in the repo: TWO BatchNorm-
 heavy CNNs (PoseNet2D + PoseNet3D) + two frozen transformers (lifter and
@@ -49,7 +48,7 @@ def _assert_tree_close(a, b, atol, label=""):
 def _build_state(rng_seed=0):
     model2d = PoseNet2D(architecture="resnet18")
     model3d = PoseNet3D(architecture="resnet18", depth=8,
-                        return_heatmap=True, use_pallas=False)
+                        return_heatmap=True)
     lifter = JointTransformerLifter(hidden=64, n_blocks=1, heads=2)
     projector = JointTransformerLifter(in_dim=3, out_dim=2, hidden=64,
                                        n_blocks=1, heads=2)

@@ -26,7 +26,7 @@ def jpeg_dir(tmp_path, rng):
 
 from pose3d_tpu.data.native_build import ensure_built  # noqa: E402
 
-# build is explicit now (ADVICE: no compiler side effects at decode time)
+# build is explicit now (no compiler side effects at decode time)
 ensure_built()
 
 

@@ -7,7 +7,7 @@ import pytest
 from pose3d_tpu.data import native_video
 from pose3d_tpu.data.native_build import ensure_built
 
-# build is explicit now (ADVICE: no compiler side effects at decode time);
+# build is explicit now (no compiler side effects at decode time);
 # the video library additionally needs OpenCV C++ and may legitimately be
 # absent — the skipif below handles that.
 try:

@@ -150,7 +150,7 @@ class TestEndToEnd:
 class TestNativeDetector:
     @pytest.mark.slow
     def test_posenet2d_detector_end_to_end(self, synthetic_video, tmp_path):
-        """The native TPU detector branch: frames -> H36M-ordered detections
+        """The native detector branch: frames -> H36M-ordered detections
         -> merged JSON with already_h36m semantics."""
         import jax
         import jax.numpy as jnp

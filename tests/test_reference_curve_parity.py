@@ -1,5 +1,4 @@
-"""Multi-epoch MPJPE CURVE parity vs the actual reference trainer
-(VERDICT round 2, item 1b).
+"""Multi-epoch MPJPE CURVE parity vs the actual reference trainer.
 
 The strongest MPJPE-parity evidence obtainable without the real H3.6M
 export: train the phase-1 lifter for dozens of epochs on IDENTICAL

@@ -6,7 +6,7 @@ randomizes its BatchNorm running statistics so running-stat transplant is
 actually exercised, copies its state dict into this framework's flax params
 via pose3d_tpu.interop, and asserts forward equality on random inputs.
 
-Covered (VERDICT round-1 item 1):
+Covered:
 - ``LinearModel``  -> MartinezLifter   (phase1_lifting/baselineModel.py:50-102)
 - ``MyViT``        -> JointTransformerLifter (baselineModel.py:312-362)
 - ``AE``           -> AELifter          (baselineModel.py:135-215)

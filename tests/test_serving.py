@@ -64,34 +64,6 @@ class TestLifterService:
         _, _, svc = vit_service
         assert svc.warmup() is svc
 
-    def test_fused_gate_matches_kernel_contract(self):
-        """The serving gate must accept exactly the per-shard bucket sizes
-        lifter_forward_fused accepts (ADVICE round 4: a hardcoded tile in
-        the gate let valid configs crash at warmup after ROWS changed)."""
-        from pose3d_tpu.ops.pallas_lifter import N_JOINTS, ROWS
-        from pose3d_tpu.serving import fused_vit_buckets_ok
-
-        cell = ROWS // N_JOINTS
-
-        def kernel_accepts(batch):
-            # mirror of lifter_forward_fused's validation at the top of
-            # pose3d_tpu/ops/pallas_lifter.py::lifter_forward_fused
-            return (batch * N_JOINTS) % ROWS == 0
-
-        for n_shards in (1, 2, 4, 8):
-            for bucket in (16, 32, 64, 96, 128, 256, 1024, 8192):
-                if bucket % n_shards:
-                    continue
-                per_shard = bucket // n_shards
-                assert (fused_vit_buckets_ok([bucket], n_shards)
-                        == kernel_accepts(per_shard)), (
-                    f"gate/kernel disagree: bucket={bucket} "
-                    f"n_shards={n_shards} cell={cell}")
-        # the concrete round-4 failure: 2-shard mesh, min_bucket=64
-        # -> per-shard 32, which the old '% 32' gate wrongly accepted
-        if cell > 32:
-            assert not fused_vit_buckets_ok([64], 2)
-
 
 class TestMeshServing:
     """DP serving over the 8-virtual-device mesh equals single-device."""
